@@ -1,6 +1,6 @@
-"""pbr3d — TPU-native part-based 3D reconstruction framework.
+"""pbr3d — part-based 3D reconstruction in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 BarnitaSharma/Part-based-3D-Reconstruction (classical-CV monument
 reconstruction from semantic part masks):
 
@@ -9,16 +9,14 @@ reconstruction from semantic part masks):
   stage 3  part-wise symmetry-preserving warping (pbr3d.deform)
   eval     intra-/inter-method metrics           (pbr3d.eval)
 
-Everything compute-heavy runs as jit-compiled XLA (with Pallas kernels for
-the hot paths); artifact formats (npz voxel grids, camera JSONs) are kept
+Everything compute-heavy runs as jit-compiled XLA programs; artifact formats (npz voxel grids, camera JSONs) are kept
 byte-compatible with the reference's ``results/`` goldens.
 """
 
 from pbr3d import config
 from pbr3d.utils.hostmem import keep_host_heap
 
-# This container intermittently page-faults fresh memory at ~10-20 MB/s;
-# retaining the heap makes the repeated large host temporaries fault once
+# Retaining the heap makes the repeated large host temporaries fault once
 # per process instead of once per use (see pbr3d.utils.hostmem).
 keep_host_heap()
 

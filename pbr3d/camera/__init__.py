@@ -1,4 +1,4 @@
-"""Stage 2 — perspective camera estimation (TPU-native)."""
+"""Stage 2 — perspective camera estimation."""
 
 from pbr3d.camera.geometry import look_at_rotation, project_points, project_point
 from pbr3d.camera.keypoints import (

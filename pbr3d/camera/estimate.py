@@ -106,7 +106,8 @@ def _lm_fit(
         x, lam, it, _ = state
         r = lm_res(x)
         J = jax.jacfwd(lm_res)(x)  # (R, 9)
-        # HIGHEST: bf16-default TPU matmuls distort the normal equations
+        # HIGHEST: a reduced-precision f32 matmul (TF32 on the GPU) would
+        # distort the normal equations
         hi_p = jax.lax.Precision.HIGHEST
         JtJ = jnp.matmul(J.T, J, precision=hi_p)
         g = jnp.matmul(J.T, r, precision=hi_p)

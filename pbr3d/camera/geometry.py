@@ -125,7 +125,7 @@ def params_to_vector(cam: Dict) -> np.ndarray:
 
     Kept in numpy: every caller either hands it to a jit program (device_put
     is free of compiles) or re-wraps it with ``jnp.asarray``; building it
-    eagerly in jnp cost 3 one-off remote-compiled programs per process."""
+    eagerly in jnp would compile 3 one-off programs per process."""
     return np.concatenate(
         [
             np.asarray(cam["cam_pos"], np.float32).ravel(),

@@ -41,10 +41,9 @@ def extract_minaret_voxels_by_label(
         pid = config.PART_IDS[part]
         mask = grid_labels == pid
         # Crop to the part's bbox before labeling: the minarets occupy a
-        # thin slab of the grid, and the full-grid scipy label was the
-        # stage-2 host-prep bottleneck (~1 s/part at 256-cubed under
-        # thread contention vs ~10 ms cropped; components of a mask are
-        # always contained in its bbox, so the labeling is unchanged).
+        # thin slab of the grid, and a full-grid label is the stage-2
+        # host-prep bottleneck (components of a mask are always contained
+        # in its bbox, so the labeling is unchanged).
         nz = [np.flatnonzero(mask.any(axis=tuple(a for a in range(3) if a != ax)))
               for ax in range(3)]
         if any(len(i) == 0 for i in nz):
@@ -60,8 +59,8 @@ def extract_minaret_voxels_by_label(
         for cid in range(1, n + 1):
             if stats["count"][cid] == 0:
                 continue
-            # coords from the small bbox slice (full-grid argwhere per
-            # component costs seconds on this container's CPU)
+            # coords from the small bbox slice (not a full-grid argwhere
+            # per component)
             lo = stats["bbox_min"][cid]
             hi = stats["bbox_max"][cid] + 1
             sl = tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))

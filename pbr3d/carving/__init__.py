@@ -1,4 +1,4 @@
-"""Stage 1 — orthographic semantic voxel carving (TPU-native)."""
+"""Stage 1 — orthographic semantic voxel carving."""
 
 from pbr3d.carving.stage1 import (
     global_carve,

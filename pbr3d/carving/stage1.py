@@ -1,6 +1,6 @@
 """Stage 1 — orthographic semantic voxel carving.
 
-TPU-native re-design of the reference's carving engine
+JAX re-design of the reference's carving engine
 (reference: utils/voxel_carving_utils.py).  All grids are uint8 *label*
 grids of shape (W, H, D) (0 = empty, 1..10 = part ids); the RGB conversion
 happens only at the artifact boundary (pbr3d.io.artifacts).

@@ -21,10 +21,10 @@ from pbr3d.ops.components import connected_components, component_stats
 def _xyz_f32(d0: np.ndarray, d1: np.ndarray, d2: np.ndarray) -> np.ndarray:
     """(N, 3) float32 (x, y, z) from np.where index triples.
 
-    ``np.stack([d2, d1, d0], axis=1).astype(np.float32)`` costs ~10 s for a
-    5.8M-point monument on this container's CPU (the int64 transposed stack
-    thrashes); preallocating float32 and writing columns is ~0.07 s for the
-    identical result.
+    Preallocating float32 and writing columns avoids the int64 transposed
+    temporary of ``np.stack([d2, d1, d0], axis=1).astype(np.float32)``
+    (identical result, far less memory traffic on multi-million-point
+    monuments).
     """
     out = np.empty((len(d0), 3), np.float32)
     out[:, 0] = d2
@@ -36,8 +36,8 @@ def _xyz_f32(d0: np.ndarray, d1: np.ndarray, d2: np.ndarray) -> np.ndarray:
 class PointCache:
     """One full-grid pass, then per-part point sets by cheap filtering.
 
-    ``points_by_parts`` scans the whole grid per call; with many parts on
-    this container's slow host CPU those scans dominate stage 3.  The cache
+    ``points_by_parts`` scans the whole grid per call; with many parts
+    those host scans add up in stage 3.  The cache
     extracts ALL occupied voxels once (raster order preserved) and filters
     the flat label vector per part.
     """
@@ -107,8 +107,7 @@ def surface_points_by_parts(
     a point-splat silhouette (and a min-Z buffer) of the shell matches the
     full solid's to within pixel-rounding edge cases — at a fraction of the
     points (O(V^2) vs O(V^3)).  Used by the stage-2 mask-IoU camera search,
-    where the remote backend was observed to crash on segment reductions
-    over multi-million-point solids at 512 scale.
+    whose per-candidate segment reductions scale with the point count.
     """
     grid_labels = np.asarray(grid_labels)
     ids = config.part_ids(part_names)

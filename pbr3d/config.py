@@ -19,6 +19,7 @@ Label convention
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Dict, List, Mapping, Sequence, Tuple
 
@@ -160,12 +161,21 @@ def rgb_to_labels(rgb: np.ndarray, other_id: int = OTHER_ID) -> np.ndarray:
     ``EMPTY_ID``; anything else (e.g. resize blends) maps to ``other_id``.
     """
     rgb = np.asarray(rgb)
-    flat = rgb.reshape(-1, 3)
-    out = np.full(flat.shape[0], other_id, dtype=np.uint8)
-    out[np.all(flat == 0, axis=-1)] = EMPTY_ID
-    for name, i in PART_IDS.items():
-        out[np.all(flat == PALETTE[i], axis=-1)] = i
-    return out.reshape(rgb.shape[:-1])
+    key = ((rgb[..., 0].astype(np.uint32) << 16)
+           | (rgb[..., 1].astype(np.uint32) << 8)
+           | rgb[..., 2].astype(np.uint32))
+    return _rgb_lut(int(other_id))[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _rgb_lut(other_id: int) -> np.ndarray:
+    """(2**24,) uint8 table from packed 0xRRGGBB to label id."""
+    lut = np.full(1 << 24, other_id, np.uint8)
+    lut[0] = EMPTY_ID
+    for i in PART_IDS.values():
+        r, g, b = (int(c) for c in PALETTE[i])
+        lut[(r << 16) | (g << 8) | b] = i
+    return lut
 
 
 def part_ids(names: Sequence[str]) -> np.ndarray:
@@ -173,11 +183,16 @@ def part_ids(names: Sequence[str]) -> np.ndarray:
     return np.array([PART_IDS[n] for n in names], dtype=np.int32)
 
 
-def data_root(default: str | Path = "/root/reference/data") -> Path:
+#: The checkout this package lives in.
+REPO_ROOT: Path = Path(__file__).resolve().parents[1]
+
+#: In-repo inputs in the reference's ``data/`` layout: per-monument front and
+#: drone label planes derived from the committed golden-resolution artifacts
+#: by ``scripts/derive_inputs.py`` (self-consistent targets, not the
+#: reference's hand-drawn masks).
+DATA_ROOT: Path = REPO_ROOT / "data"
+
+
+def data_root(default: str | Path = DATA_ROOT) -> Path:
     """Default dataset root (the reference's ``data/`` layout)."""
-    return Path(default)
-
-
-def golden_root(default: str | Path = "/root/reference/results") -> Path:
-    """Default golden-artifact root (the reference's ``results/`` layout)."""
     return Path(default)

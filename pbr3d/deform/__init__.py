@@ -1,4 +1,4 @@
-"""Stage 3 — part-wise symmetry-preserving 3D refinement (TPU-native)."""
+"""Stage 3 — part-wise symmetry-preserving 3D refinement."""
 
 from pbr3d.deform.warp import deform_coords, scatter_part, build_deformed_grid
 from pbr3d.deform.search import optimize_part_deform, refine_parts

@@ -2,10 +2,10 @@
 
 The per-part candidate evaluation (`deform/search.py`) is a chain of small
 device programs: ~64-128 candidates x a 16-32k-point shell per dispatch,
-~10 ns/point-candidate of real work under a ~23 ms fixed round-trip
-(measured, scripts/probe_eval_scaling.py).  run_all refines monuments on
+a fixed per-dispatch cost on top of the per-point-candidate work.
+run_all refines monuments on
 worker threads, so five monuments' chains hit the device with five separate
-small programs per search stage — five round-trips and five program
+small programs per search stage — five blocking dispatches and five program
 launches for work that is shape-identical across monuments.
 
 This module gives those chains a shared :class:`DeformEvalBatcher`: each
@@ -23,11 +23,11 @@ arrive), or when the oldest submission exceeds the batching window.
 Chains register around their refine passes so the batcher knows how many
 peers may still submit.
 
-The scene axis is also the multi-chip axis: given a `jax.sharding.Mesh`
+The scene axis is also the multi-device axis: given a `jax.sharding.Mesh`
 with a ``scene`` dimension, the batcher shards each group's stacked inputs
-over it, so on an N-chip mesh the five monuments' searches run on five
-chips (SURVEY §5 distributed row; `__graft_entry__.dryrun_multichip`
-exercises this path on a virtual CPU mesh).
+over it, so on an N-device mesh the monuments' searches run on N devices
+(SURVEY §5 distributed row; `__graft_entry__.dryrun_multichip` exercises
+this path on virtual CPU devices).
 """
 
 from __future__ import annotations
@@ -263,8 +263,6 @@ class DeformEvalBatcher:
             self._cond.notify_all()
 
     def _dispatch(self, key: Tuple, entries: List[_Entry]):
-        from pbr3d.utils.transfer import fast_get
-
         kind, approx, H, W = key[0], key[1], key[2], key[3]
         M = len(entries)
         try:
@@ -286,7 +284,7 @@ class DeformEvalBatcher:
                     for j in range(len(slots[0]))
                 )
                 out = _grouped_eval_stacked(kind, approx, H, W, *stacked)
-                res = fast_get(out)
+                res = np.asarray(out)
                 for i, e in enumerate(entries):
                     e.result = res[i]
             elif M == 1:
@@ -294,7 +292,7 @@ class DeformEvalBatcher:
                 # compiled/cached for the serial path) instead of minting
                 # M=1 variants of the grouped program
                 e = entries[0]
-                e.result = fast_get(_solo_eval(kind, approx, H, W, e.arrays))
+                e.result = np.asarray(_solo_eval(kind, approx, H, W, e.arrays))
             else:
                 # pad the group to a pow2 slot count (<= max_slots) with
                 # copies of slot 0: few executable shapes; padding discarded
@@ -305,16 +303,21 @@ class DeformEvalBatcher:
                 slots += [entries[0].arrays] * (Mp - M)
                 flat = tuple(a for s in slots for a in s)
                 out = _grouped_eval(kind, approx, H, W, Mp, *flat)
-                res = fast_get(out)
+                res = np.asarray(out)
                 for i, e in enumerate(entries):
                     e.result = res[i]
-        except Exception as err:  # pragma: no cover - device failures
+        except BaseException as err:
+            # every waiter re-raises the failure in its own thread; a
+            # non-Exception (interrupt, exit) also propagates here
             for e in entries:
                 e.error = err
-        self.dispatches += 1
-        self.slots_total += M
-        for e in entries:
-            e.event.set()
+            if not isinstance(err, Exception):
+                raise
+        finally:
+            self.dispatches += 1
+            self.slots_total += M
+            for e in entries:
+                e.event.set()
 
 
 def _solo_eval(kind: str, approx: bool, H: int, W: int, arrays: Tuple):

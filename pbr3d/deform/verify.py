@@ -77,9 +77,7 @@ def _part_zbufs_grid(grid, cam: Dict, H: int, W: int, parts):
     ids = np.full((_ZB_SLOTS,), 255, np.int32)
     for i, p in enumerate(parts):
         ids[i] = config.PART_IDS[p]
-    from pbr3d.utils.transfer import fast_get
-
-    zbs = fast_get(partwise_zbuffers_grid(
+    zbs = np.asarray(partwise_zbuffers_grid(
         jnp.asarray(grid), params_to_vector(cam), jnp.asarray(ids),
         jnp.asarray([H, W], np.int32), Hp, Wp,
     ))

@@ -1,6 +1,6 @@
 """Inter-method point-cloud / surface metrics (notebook 5 support).
 
-Re-designs ``utils/eval_helpers.py`` on TPU reductions:
+Re-designs ``utils/eval_helpers.py`` on device reductions:
 
 * chamfer / F-score / F1(τ) curves on the tiled matmul NN kernel
   (pbr3d.ops.neighbors) instead of cKDTree/sklearn

@@ -12,18 +12,17 @@ Re-designs ``utils/eval_helpers_intra.py``:
 The z-buffer + visibility projection run as device segment reductions
 (pbr3d.ops.projection) instead of the reference's per-point Python loops
 (its :134-190 hot spot).  Tables keep the reference's formats (pandas +
-tabulate, monument short codes, "a→b" cells).
+tabulate, monument short codes, "a→b" cells); pandas and tabulate are
+imported by the table functions only, so the pipeline's exact stage-3 verify
+(which reads masks through this module) needs neither.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence
+from typing import TYPE_CHECKING, Dict, List, Sequence
 
-import cv2
 import numpy as np
-import pandas as pd
-from tabulate import tabulate
 
 import jax.numpy as jnp
 
@@ -38,7 +37,11 @@ from pbr3d.camera.keypoints import (
 from pbr3d.carving.voxel import all_points, bucket_size, pad_points, points_by_parts
 from pbr3d.config import rgb_to_labels
 from pbr3d.io.artifacts import load_camera_json, load_voxel_grid_labels
+from pbr3d.io.masks import _read_rgb, mask_file, resize_nearest
 from pbr3d.ops.projection import binary_iou, project_visible, zbuffer
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 MINARETS = ["LM1", "RM1", "LM2", "RM2"]
 
@@ -59,16 +62,12 @@ def resize_mask_to_voxel_grid(mask_rgb: np.ndarray, grid_shape) -> np.ndarray:
     H, W = mask_rgb.shape[:2]
     target = max(grid_shape[:3])
     scale = target / max(H, W)
-    return cv2.resize(
-        mask_rgb,
-        (int(round(W * scale)), int(round(H * scale))),
-        interpolation=cv2.INTER_NEAREST,
-    )
+    return resize_nearest(
+        mask_rgb, int(round(W * scale)), int(round(H * scale)))
 
 
 def _load_mask_labels_for_grid(root_masks, monument, view, grid_shape) -> np.ndarray:
-    path = os.path.join(root_masks, monument, "masks", f"{monument}_{view}_mask.png")
-    img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+    img = _read_rgb(mask_file(root_masks, monument, view))
     return rgb_to_labels(resize_mask_to_voxel_grid(img, grid_shape))
 
 
@@ -100,7 +99,10 @@ def _iou_bool(a, b) -> float:
     return float(binary_iou(jnp.asarray(a), jnp.asarray(b)))
 
 
-def _finish_table(cells: Dict, monuments: Sequence[str], header: str) -> pd.DataFrame:
+def _finish_table(cells: Dict, monuments: Sequence[str], header: str) -> "pd.DataFrame":
+    import pandas as pd
+    from tabulate import tabulate
+
     df = pd.DataFrame.from_dict(cells, orient="index")
     df = df[[m for m in monuments]]
     df.columns = [MONUMENT_SHORT[m] for m in df.columns]
@@ -115,7 +117,7 @@ def run_minaret_kp_evaluation(
     root_voxels: str,
     root_masks: str,
     cam_dir: str,
-) -> pd.DataFrame:
+) -> "pd.DataFrame":
     """Θinit -> Θkp keypoint reprojection error (px) per minaret."""
     cells = {m: {} for m in MINARETS + ["Average"]}
 
@@ -165,7 +167,7 @@ def run_minaret_iou_evaluation(
     root_voxels: str,
     root_masks: str,
     cam_dir: str,
-) -> pd.DataFrame:
+) -> "pd.DataFrame":
     """Visibility-aware per-minaret IoU under Θinit -> Θkp -> Θfinal."""
     cells = {m: {} for m in MINARETS + ["Average"]}
 
@@ -220,7 +222,7 @@ def run_part_minaret_binary_iou(
     deformed_voxels: str,
     root_masks: str,
     cam_dir: str,
-) -> pd.DataFrame:
+) -> "pd.DataFrame":
     """Per-part + minaret + whole-silhouette IoU, init -> deformed, Θfinal."""
     PARTS = ["dome", "chhatris", "main_door", "windows", "plinth"]
     rows = PARTS + ["minarets", "whole"]

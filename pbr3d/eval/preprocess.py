@@ -1,5 +1,5 @@
 """Inter-method data preparation (notebook 5): SfM cloud alignment, symmetric
-completion, ICP — the TPU re-design of the reference's Open3D pipeline
+completion, ICP — the JAX re-design of the reference's Open3D pipeline
 (recovered from utils/__pycache__/preprocess_helpers.cpython-38.pyc, method
 documented in results/4.Inter-method_3D/README.md:28-46).
 
@@ -15,7 +15,7 @@ Steps (reference bytecode L32-L120):
    [[1,0,0],[0,0,1],[0,1,0]], sample 50k surface points, flip y, align
    ground planes (min-y).
 
-TPU-native replacements: RANSAC scores all candidate planes in ONE vmapped
+Device replacements: RANSAC scores all candidate planes in ONE vmapped
 device program (Open3D iterates); ICP correspondences use the tiled matmul
 NN kernel; the rigid estimate is a Kabsch SVD.
 """
@@ -59,8 +59,9 @@ def _ransac_plane_scores(pts: jax.Array, key, dist_thresh: float, n_candidates: 
     norms = jnp.linalg.norm(normals, axis=1, keepdims=True)
     normals = normals / jnp.maximum(norms, 1e-12)
     d = -jnp.sum(normals * tri[:, 0], axis=1)
-    # HIGHEST: bf16-default TPU matmuls put ~0.004 of error on point-plane
-    # distances scored against a 0.01 inlier threshold
+    # HIGHEST: a reduced-precision f32 matmul (TF32 on the GPU) puts
+    # errors of the order of the 0.01 inlier threshold on point-plane
+    # distances
     dist = jnp.abs(
         jnp.matmul(pts, normals.T, precision=jax.lax.Precision.HIGHEST)
         + d[None, :]

@@ -1,4 +1,4 @@
-"""TPU compute primitives (jit-compiled XLA + Pallas kernels)."""
+"""Device compute primitives (jit-compiled XLA programs)."""
 
 from pbr3d.ops.rotate import rotate_y, rotate_y_binary_u8
 from pbr3d.ops.carve import carve_with_mask, rotate_carve_sweep

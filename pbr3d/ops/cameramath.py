@@ -18,9 +18,9 @@ def look_at_rotation_np(eye, target) -> np.ndarray:
 
     Identical branch semantics (same degenerate-up fallback).  Host paths
     (e.g. camera reparameterization in the stage-2 retry starts) must not
-    call the jnp version eagerly: on the remote backend every one of its
-    ~10 tiny ops compiles as a separate one-off executable per process,
-    which is pure cold-start cost."""
+    call the jnp version eagerly: every one of its ~10 tiny ops would
+    compile as a separate one-off executable per process, which is pure
+    cold-start cost."""
     eye = np.asarray(eye, np.float64)
     target = np.asarray(target, np.float64)
     up_default = np.array([0.0, 1.0, 0.0])
@@ -52,10 +52,11 @@ def look_at_rotation(eye: jax.Array, target: jax.Array) -> jax.Array:
 def camera_rays(pts: jax.Array, cam_pos: jax.Array, target: jax.Array) -> jax.Array:
     """(N, 3) world points -> camera-frame coordinates.
 
-    Precision.HIGHEST is load-bearing: TPU matmuls default to bf16 input
-    passes, which puts ~1 px of error on u/v and ~4 voxels on camera Z at
-    512-scale coordinates (measured device-vs-CPU) — fatal for z-buffer
-    visibility tests whose epsilon is 1e-3 (eval_helpers_intra.py:168)."""
+    Precision.HIGHEST is load-bearing: a default-precision f32 matmul may
+    run with reduced-precision inputs (TF32 on the GPU, ~3 decimal digits),
+    which at 512-scale coordinates puts pixels of error on u/v and voxels
+    on camera Z — fatal for z-buffer visibility tests whose epsilon is 1e-3
+    (eval_helpers_intra.py:168)."""
     R = look_at_rotation(cam_pos, target)
     return jnp.matmul(pts - cam_pos, R.T, precision=jax.lax.Precision.HIGHEST)
 
@@ -74,12 +75,11 @@ def project_points_soa(
     """Structure-of-arrays projection: three (N,) coordinate vectors in,
     (u, v, Z_cam) out.
 
-    The (N, 3) array form puts the 3-axis on the TPU lane dimension (128
-    lanes), wasting 125/128 of every vector op and forcing a relayout for
-    each column slice — measured ~13 ns/point on v5e.  Expressed as nine
-    f32 FMAs over (N,) vectors the same transform runs at ~0.7 ns/point.
-    f32 VPU arithmetic is exact f32 (no bf16 passes), so this is at least
-    as precise as the Precision.HIGHEST matmul in :func:`camera_rays`."""
+    Nine f32 FMAs over packed (N,) vectors instead of an (N, 3) x (3, 3)
+    product whose minor axis of 3 wastes most of every vector op and needs
+    a relayout per column slice.  Elementwise f32 arithmetic is exact f32,
+    so this is at least as precise as the Precision.HIGHEST matmul in
+    :func:`camera_rays`."""
     R = look_at_rotation(cam_pos, target)
     dx = xs - cam_pos[0]
     dy = ys - cam_pos[1]

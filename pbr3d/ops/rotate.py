@@ -13,7 +13,7 @@ reproduce:
   (verified empirically against scipy 1.17) — for {0,1} grids that is a
   ``>= 0.5`` threshold.
 
-TPU-native design: a rotation about Y only mixes the (x, z) axes, so the 3D
+Design: a rotation about Y only mixes the (x, z) axes, so the 3D
 resample is a 2D bilinear warp of the (x, z) planes batched over y.  We
 precompute the 4 corner gather indices + weights **once per (shape, angle)**
 at trace time (host numpy, float64 — matching scipy's double-precision
@@ -195,8 +195,8 @@ def lut_plan_embedded(
     padded flat layout; padded output pixels get decision 0 (always empty).
     A sweep on the padded grid therefore produces BIT-IDENTICAL content in
     the original region while sharing one compiled executable across every
-    crop that fits the bucket — the key trick for a backend where every
-    distinct program shape is a fresh (slow) remote compile.
+    crop that fits the bucket — every distinct program shape would
+    otherwise be a fresh compile.
     """
     idx, dec = lut_plan(W, D, float(angle_deg))
     k = idx.shape[0]

@@ -1,19 +1,21 @@
 """Device-mesh sharding for batched multi-scene reconstruction.
 
 The reference is strictly single-threaded CPU (SURVEY §2: no DP/TP/PP of any
-kind); the TPU-native scaling story is:
+kind).  The mesh here follows the algorithm, not the hardware:
 
 * ``scene`` axis — data parallelism over monuments/scenes: masks are padded
   to a common shape and the whole carve/project pipeline is vmapped, with
-  the batch dimension sharded across devices (zero communication);
-* ``y`` axis — spatial sharding of the voxel grid's height dimension.  The
-  Y-rotation sweep only mixes the (x, z) axes, so rotate+carve is
-  communication-free under Y sharding; XLA inserts the collectives for the
-  projection segment-reductions automatically.
+  the batch dimension sharded across devices (zero communication).  This
+  is the only axis the production path (``run_all``) uses:
+  :func:`scene_only_mesh`.
+* ``y`` axis — spatial sharding of the voxel grid's height dimension, used
+  by the entry-point dry run (:func:`scene_mesh`).  The Y-rotation sweep
+  only mixes the (x, z) axes, so rotate+carve is communication-free under
+  Y sharding; XLA inserts the collectives for the projection
+  segment-reductions.
 
-No DCN/multi-host path is required by the reference's capability set; the
-mesh works both on real multi-chip ICI and on
-``--xla_force_host_platform_device_count`` CPU meshes (tests).
+Single host only; the same meshes run on several GPUs of one host and on
+``--xla_force_host_platform_device_count`` virtual CPU devices (tests).
 """
 
 from __future__ import annotations

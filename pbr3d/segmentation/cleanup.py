@@ -3,7 +3,7 @@ two-pane editor (segmentation_utils/interactive_part_segmentation.py).
 
 * close_holes: odd-kernel morphological close (reference :370-378);
 * remove_small_regions_2d: drop 8-connected regions under min_area
-  (reference :380-386, cv2.connectedComponentsWithStats) on our TPU
+  (reference :380-386, cv2.connectedComponentsWithStats) on our
   components op;
 * MaskEditor: per-part binary masks composited by add / replace / subtract
   with last-action-wins draw order (reference :389-425, sam_ui.py:181-205),

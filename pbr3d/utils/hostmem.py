@@ -1,18 +1,15 @@
-"""Host-memory tuning for this environment's episodic page-fault stalls.
+"""Host-memory tuning against page-fault stalls on large temporaries.
 
-The container's first-touch page-fault rate intermittently collapses to
-~10-20 MB/s (host-level memory overcommit under the VM; normally ~2 GB/s).
 glibc returns every free >=128 KB to the kernel via munmap, so each large
 numpy temporary re-faults its pages — repeated ~100 MB temporaries in the
-carving/stats host loops then cost 10+ s EACH during bad phases (measured:
-a 300 MB alloc/fill cycle took 18.7 s on first touch and 0.05 s once the
-pages were retained).
+carving/stats host loops pay first-touch page faults on every use, which
+is slow on hosts under memory overcommit.
 
 ``keep_host_heap`` raises the malloc mmap/trim thresholds so large blocks
 come from the persistent heap and freed pages are NOT returned — the
 process faults each page once and reuses it thereafter.  Memory cost is the
-high-water mark of concurrently-live big allocations (hundreds of MB here,
-on a 128 GB box).  Opt out with ``PBR3D_MALLOPT=0``.
+high-water mark of concurrently-live big allocations (hundreds of MB).
+Opt out with ``PBR3D_MALLOPT=0``.
 """
 
 from __future__ import annotations

@@ -6,20 +6,28 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import jax
+
+
+@jax.jit
+def _tick(x):
+    return x + 1
 
 
 def device_sync() -> None:
     """Block until all previously dispatched device work has completed.
 
-    TPU cores execute enqueued programs in order, so dispatching a trivial
-    op and blocking on it fences everything enqueued before it.
+    Each device runs its programs in the order they were enqueued (one
+    compute stream per device), so a trivial program enqueued on every
+    local device and blocked on fences everything enqueued before it
+    (chip_smoke.py checks this against blocking on a program's outputs).
     """
-    import jax.numpy as jnp
+    import numpy as np
 
-    jax.block_until_ready(jnp.zeros(()))
+    jax.block_until_ready(
+        [_tick(jax.device_put(np.int32(0), d)) for d in jax.local_devices()])
 
 
 class StageTimer:
@@ -75,20 +83,10 @@ def prof(name: str, sync: bool = True):
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/pbr3d_trace"):
+def device_trace(log_dir: str):
     """jax.profiler trace around a region (inspect with TensorBoard/xprof)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
     finally:
         jax.profiler.stop_trace()
-
-
-def enable_persistent_compilation_cache(path: Optional[str] = None) -> str:
-    """Point XLA's persistent compilation cache at ``path`` (amortizes the
-    remote-TPU compile cost across processes)."""
-    path = path or os.environ.get("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    return path

@@ -14,7 +14,7 @@ the goldens' cells on identical material.
 
 Reference anchors: /root/reference/utils/eval_helpers_intra.py:560-748 (the
 nb4 table), /root/reference/utils/deformation_estimation.py:70-98 (slider
-space).  Runs on CPU or TPU — the result is a quality measurement, not a
+space).  Runs on the CPU or a GPU — the result is a quality measurement, not a
 perf number.  Order: Akbar (128^3, fast) first, Taj (512) second.
 
 Usage: python scripts/probe_golden_init.py [out_json]

@@ -95,3 +95,17 @@ def test_device_components_overflow_fallback(rng):
     host, n_host = connected_components(mask, "face")
     assert n == n_host
     np.testing.assert_array_equal(np.asarray(dev), host)
+
+
+def test_auto_path_per_platform(monkeypatch):
+    """``auto`` labels on the device on the CPU backend and on the host on
+    a GPU; the environment variable forces either."""
+    from pbr3d.ops import components
+
+    monkeypatch.delenv("PBR3D_COMPONENTS", raising=False)
+    for platform, host in (("cpu", False), ("gpu", True), ("other", True)):
+        monkeypatch.setattr(components, "_platform", lambda p=platform: p)
+        assert components._use_host() is host
+    for mode, host in (("host", True), ("device", False)):
+        monkeypatch.setenv("PBR3D_COMPONENTS", mode)
+        assert components._use_host() is host

@@ -133,16 +133,6 @@ def test_surface_metrics_smooth_vs_rough(rng):
     assert ms["Mean Roughness (λ₃)"] < mr["Mean Roughness (λ₃)"]
 
 
-def test_pallas_min_dist_matches_kdtree(rng):
-    from pbr3d.ops.pallas_kernels import min_dist2_pallas
-
-    A = rng.normal(size=(600, 3)).astype(np.float32)
-    B = rng.normal(size=(900, 3)).astype(np.float32)
-    d2 = min_dist2_pallas(A, B, interpret=True)
-    ref, _ = cKDTree(B).query(A, k=1)
-    np.testing.assert_allclose(np.sqrt(np.maximum(d2, 0)), ref, rtol=2e-3, atol=2e-4)
-
-
 def test_marching_cubes_sphere_manifold_and_accurate():
     """The generated 256-case table must produce a closed manifold with
     cube-edge-only vertices and near-exact area/volume on a smooth field."""

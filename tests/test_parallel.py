@@ -48,10 +48,11 @@ def test_batched_carve_matches_single():
         np.testing.assert_array_equal(grids[i], np.asarray(single))
 
 
-def test_pad_masks_to_common(data_root):
+def test_pad_masks_to_common():
     from pbr3d.io.masks import prepare_masks
 
-    sets = [prepare_masks(data_root, m, "front", 64) for m in ("Akbar", "Taj")]
+    sets = [prepare_masks(config.DATA_ROOT, m, "front", 64)
+            for m in ("Akbar", "Taj")]
     binary, ext = pad_masks_to_common(sets)
     assert binary.shape == ext.shape and binary.shape[0] == 2
     h, w = sets[0].binary.shape
@@ -85,20 +86,20 @@ def test_carve_monuments_batched_bit_exact(data_root):
         np.testing.assert_array_equal(batched[m], single)
 
 
-def test_carve_monuments_batched_memory_fallback(data_root):
+def test_carve_monuments_batched_memory_fallback():
     """Above the memory budget the batched API transparently degrades to the
-    serial fused path (e.g. 512-scale grids on a 16 GB chip)."""
+    serial fused path."""
     from pbr3d.carving.fused import carve_monument_fused, carve_monuments_batched
     from pbr3d.io.masks import prepare_masks
 
-    sets = {"Akbar": prepare_masks(data_root, "Akbar", "front", 64)}
+    sets = {"Akbar": prepare_masks(config.DATA_ROOT, "Akbar", "front", 64)}
     batched = carve_monuments_batched(sets, mem_budget_bytes=1)
     np.testing.assert_array_equal(
         batched["Akbar"], carve_monument_fused(sets["Akbar"])
     )
 
 
-def test_guided_batched_overlapping_windows(data_root):
+def test_guided_batched_overlapping_windows():
     """Two same-part components whose bucket windows OVERLAP must carve
     identically batched and serial: the batched write-backs re-read the live
     grid, so one window's slice cannot resurrect the other's erasure."""
@@ -136,7 +137,7 @@ def test_guided_batched_overlapping_windows(data_root):
     assert (batched != grid_p).any(), "the carve must actually erase something"
 
 
-def test_batched_stage1_active_at_bench_resolution(data_root):
+def test_batched_stage1_active_at_bench_resolution():
     """The 5-monument @256 batch must fit the default memory budget — a
     too-generous guided margin once silently demoted every bench run to the
     serial per-monument path."""
@@ -145,14 +146,17 @@ def test_batched_stage1_active_at_bench_resolution(data_root):
     from pbr3d import config
     from pbr3d.carving.fused import _batched_sweep_budget, carve_monuments_batched
     from pbr3d.io.masks import prepare_masks
+    from pbr3d.carving.fused import CPU_STAGE1_BATCH_BYTES, STAGE1_BATCH_SHARE
+    from pbr3d.utils.runtime import memory_budget
 
     sig = inspect.signature(carve_monuments_batched)
     bucket = sig.parameters["bucket"].default
     margin = sig.parameters["guided_margin"].default
-    budget = sig.parameters["mem_budget_bytes"].default
+    assert sig.parameters["mem_budget_bytes"].default is None
+    budget = memory_budget(STAGE1_BATCH_SHARE, CPU_STAGE1_BATCH_BYTES)
     whd = []
     for m in config.MONUMENTS:
-        b = prepare_masks(data_root, m, "front", 256).binary
+        b = prepare_masks(config.DATA_ROOT, m, "front", 256).binary
         whd.append((b.shape[1], b.shape[0], b.shape[1]))
     *_, per_scene = _batched_sweep_budget(whd, bucket, margin)
     assert per_scene * len(whd) <= budget, (
@@ -283,3 +287,41 @@ def test_batched_refine_sharded_matches_serial():
         for p in s:
             assert s[p]["deform"] == b[p]["deform"], p
             assert s[p]["iou"] == b[p]["iou"], p
+
+
+def test_batcher_releases_waiters_on_base_exception(monkeypatch):
+    """A failure that is not an Exception (an interrupt, an exit) inside a
+    grouped dispatch must still wake every chain waiting on that group."""
+    import threading
+
+    from pbr3d.deform import batched
+
+    class Interrupt(BaseException):
+        pass
+
+    def boom(*a, **k):
+        raise Interrupt()
+
+    monkeypatch.setattr(batched, "_grouped_eval", boom)
+    monkeypatch.setattr(batched, "_solo_eval", boom)
+    batcher = batched.DeformEvalBatcher(window_s=30.0)
+    errors = []
+    for _ in range(2):  # both chains live before either submits: one group
+        batcher.chain_enter()
+
+    def chain():
+        try:
+            batcher.submit(("plain", False, 8, 8), (np.zeros(1),))
+        except BaseException as e:  # noqa: BLE001 - the point of the test
+            errors.append(type(e))
+        finally:
+            batcher.chain_exit()
+
+    threads = [threading.Thread(target=chain, daemon=True) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=20)
+    assert not any(t.is_alive() for t in threads), "a waiter hung"
+    assert errors == [Interrupt, Interrupt]
+    assert batcher.dispatches == 1

@@ -80,7 +80,7 @@ def test_symmetric_completion_shapes(rng):
 @pytest.mark.slow
 def test_build_taj_clouds(golden_root, tmp_path, rng):
     # Subsample the 52k-point reference cloud so the 3 ICP runs stay fast on
-    # the CPU test backend (the full cloud is exercised on TPU in bench).
+    # the CPU test backend.
     import shutil
     src = f"{golden_root}/4.Inter-method_3D"
     d = load_ply(f"{src}/segmented_point_cloud_final.ply")

@@ -142,7 +142,7 @@ def test_binary_iou_empty():
 
 
 def test_splat_partwise_iou_mm_matches_exact(rng):
-    """The MXU one-hot objective vs splat_labels+partwise_iou.
+    """The one-hot matmul objective vs splat_labels+partwise_iou.
 
     Single part: bit-exact (no cross-part collisions possible).  Two
     parts: equal except on pixels where both parts collide — there the

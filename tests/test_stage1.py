@@ -3,7 +3,7 @@
 The fixture ``tests/fixtures/oracle_Akbar_128.npz`` holds the output of
 running the reference implementation (utils/voxel_carving_utils.py via
 notebook-1 cell 5/7 parameters) on Akbar at max_dim=128 in this environment.
-Our TPU pipeline must reproduce it voxel-for-voxel.
+Our pipeline must reproduce it voxel-for-voxel.
 
 NOTE on goldens: the committed golden
 ``results/1.Orthographic_Voxel_Carving/Akbar_voxel_grid.npz`` differs from

@@ -3,7 +3,7 @@
 The committed goldens were produced at max_dim=512 (SURVEY §2 row 25);
 ``tests/fixtures/oracle_Bibi_512.npz`` holds the LIVE reference
 implementation's output at 512 (generated by scripts/make_stage1_oracle.py —
-the same stubbed-import recipe as the @128 Akbar oracle).  The fused TPU
+the same stubbed-import recipe as the @128 Akbar oracle).  The fused
 path must reproduce it voxel-for-voxel, proving the 512 capability end to
 end (VERDICT round 1, Missing #1).
 """
